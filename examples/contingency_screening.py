@@ -1,4 +1,4 @@
-"""N-1 DC contingency screening on one chip.
+"""N-1 DC contingency screening on one device.
 
 Factor the base case once, then every branch outage is a device numeric
 refactorization + solve, vmapped — the whole sweep is one compiled
@@ -14,8 +14,11 @@ import time
 
 import numpy as np
 
-from csparse3_tpu.models.contingency import DCContingency
-from csparse3_tpu.models.grids import synthetic_grid
+from csparse3_jax.models.contingency import DCContingency
+from csparse3_jax.models.grids import synthetic_grid
+from csparse3_jax.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 grid = synthetic_grid(1000, seed=4)
 ca = DCContingency(grid)

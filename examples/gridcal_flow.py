@@ -14,15 +14,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import jax
 
-# float64 end-to-end on the CPU backend: this demo shows exact f64 parity
-# with the reference's flow; the TPU path (f32/split-complex) is what
-# bench.py and examples/contingency_screening.py exercise
-jax.config.update("jax_platforms", "cpu")
+# float64 end-to-end: this demo shows exact f64 parity with the reference's
+# flow; the f32 device path is what chip_smoke.py and bench.py exercise
 jax.config.update("jax_enable_x64", True)
 
-import csparse3_tpu as cst
-from csparse3_tpu.models.grids import ieee14, rcm_grid
-from csparse3_tpu.models.powerflow import FastDecoupled, NewtonPowerFlow
+import csparse3_jax as cst
+from csparse3_jax.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
+from csparse3_jax.models.grids import ieee14, rcm_grid
+from csparse3_jax.models.powerflow import FastDecoupled, NewtonPowerFlow
 
 # --- the reference's 5-bus / 7-branch line table -------------------------
 lines = [(3, 1), (4, 3), (5, 4), (5, 2), (5, 1), (2, 1), (2, 3)]
@@ -41,7 +42,7 @@ print("islands:", A.islands())             # -> one island of 5 buses
 # --- beyond the reference: solve the IEEE 14-bus system -------------------
 grid, perm = rcm_grid(ieee14())            # RCM renumbering -> banded Ybus
 
-# gather-free device path: DIA split-complex SpMV + banded MXU trisolves
+# gather-free banded path: DIA split-complex SpMV + banded matmul trisolves
 fd = FastDecoupled(grid, spmv="dia", solver="banded", tol=1e-10)
 vm, va, iters, res = fd.solve()
 print(f"fast-decoupled: {iters} iterations, residual {res:.2e}")

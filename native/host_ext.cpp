@@ -1,4 +1,4 @@
-// csparse3-tpu native host kernels.
+// csparse3-jax native host kernels.
 //
 // The reference ships its native compute as templated C++ sparsetools
 // (reference: src/sparsetools/*.h) bound via SWIG; here the native layer
@@ -6,10 +6,10 @@
 // and latency-bound in Python — sparse LU factorization (the left-looking
 // algorithm of linalg/lu_host.py, reference breadcrumb
 // src/research/scipy_wrappers.py), triplet->CSC assembly, and entry-stream
-// sort/dedup — while all throughput compute stays on the TPU via XLA.
+// sort/dedup — while all throughput compute stays on the device via XLA.
 // Bound with ctypes (plain extern "C"), no SWIG/pybind.
 //
-// Build: make -C native   (produces csparse3_tpu/native/libhost_ext.so)
+// Build: make -C native   (produces csparse3_jax/native/libhost_ext.so)
 
 #include <algorithm>
 #include <chrono>

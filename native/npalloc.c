@@ -9,7 +9,7 @@
  * This handler routes allocations >= THRESHOLD to mmap(MAP_POPULATE) with
  * a power-of-two size-class free-list cache (munmap would re-fault the
  * next user), and everything else to plain malloc/calloc.  Installed at
- * `import csparse3_tpu` (utils/hostmem.py); harmless (just redundant) on
+ * `import csparse3_jax` (utils/hostmem.py); harmless (just redundant) on
  * healthy kernels.
  */
 #define PY_SSIZE_T_CLEAN

@@ -7,12 +7,12 @@ import pytest
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
-import csparse3_tpu as cst
-from csparse3_tpu.linalg import BandedLU, BandedSolvePlan, bandwidth, splu
+import csparse3_jax as cst
+from csparse3_jax.linalg import BandedLU, BandedSolvePlan, bandwidth, splu
 
 
 def _grid_system(n, seed, shift=3.0):
-    from csparse3_tpu.models.grids import synthetic_grid
+    from csparse3_jax.models.grids import synthetic_grid
 
     g = synthetic_grid(n, seed=seed)
     bp = 1.0 / g.x
@@ -62,7 +62,7 @@ def test_bandwidth_guard():
 
 
 def test_complex_banded():
-    from csparse3_tpu.models.grids import synthetic_grid, ybus
+    from csparse3_jax.models.grids import synthetic_grid, ybus
 
     g = synthetic_grid(300, seed=6)
     Y, _, _ = ybus(g)
@@ -192,14 +192,14 @@ class TestBandedLUComplex:
     host<->device boundary."""
 
     def _ybus_system(self, n, seed):
-        from csparse3_tpu.models.grids import synthetic_grid, ybus
+        from csparse3_jax.models.grids import synthetic_grid, ybus
 
         g = synthetic_grid(n, seed=seed)
         Y, _, _ = ybus(g)
         return cst.add(Y, cst.diags(np.full(n, 0.5 + 0.1j)))
 
     def test_complex_host_and_device(self):
-        from csparse3_tpu.utils import split, splitc, unsplit
+        from csparse3_jax.utils import split, splitc, unsplit
 
         A = self._ybus_system(800, seed=6)
         plan = BandedLU(A)
@@ -215,7 +215,7 @@ class TestBandedLUComplex:
 
 class TestFactorDevice:
     """BandedLU.factor_device: numeric factorization entirely on device
-    (symbolic-only host work) — the on-chip LU path (VERDICT r2 item 1)."""
+    (symbolic-only host work) — the on-chip LU path."""
 
     def test_matches_scipy(self):
         A = _grid_system(800, seed=7)
@@ -251,7 +251,7 @@ class TestFactorDevice:
         assert res < 1e-5
 
     def test_from_matrix_inside_jit_chain(self):
-        from csparse3_tpu.linalg.banded import BandedRefactor
+        from csparse3_jax.linalg.banded import BandedRefactor
 
         A = _grid_system(300, seed=10)
         rf = BandedRefactor.from_matrix(A)
@@ -272,7 +272,7 @@ class TestFactorDevice:
         factors through the split-complex interleaved embedding."""
         import scipy.sparse.linalg as spla
 
-        from csparse3_tpu.models.grids import synthetic_grid, ybus
+        from csparse3_jax.models.grids import synthetic_grid, ybus
 
         g = synthetic_grid(100, seed=11)
         Y, _, _ = ybus(g)
@@ -286,12 +286,12 @@ class TestFactorDevice:
 
 def test_factor_device_complex_single_chip():
     """BandedLU.factor_device on a complex matrix: split-complex
-    interleaved embedding, ComplexBandedSolve wrapper (VERDICT r4
-    item 6; the linalg/banded.py real-only guard is lifted)."""
+    interleaved embedding, ComplexBandedSolve wrapper (the
+    linalg/banded.py real-only guard is lifted)."""
     import scipy.sparse.linalg as spla
 
-    from csparse3_tpu.linalg import BandedLU
-    from csparse3_tpu.models.grids import synthetic_grid, ybus
+    from csparse3_jax.linalg import BandedLU
+    from csparse3_jax.models.grids import synthetic_grid, ybus
 
     n = 3000
     g = synthetic_grid(n, seed=7)
@@ -317,7 +317,7 @@ class TestStreamedSPIKE:
         return A, A.to_scipy().tocsc()
 
     def test_matches_scipy(self):
-        from csparse3_tpu.linalg import StreamedSPIKE
+        from csparse3_jax.linalg import StreamedSPIKE
 
         A, As = self._sys(6000)
         sk = StreamedSPIKE(A, P=4)
@@ -334,7 +334,7 @@ class TestStreamedSPIKE:
         assert res2 < 1e-4, res2
 
     def test_chunk_count_invariance(self):
-        from csparse3_tpu.linalg import StreamedSPIKE
+        from csparse3_jax.linalg import StreamedSPIKE
 
         A, As = self._sys(4000, seed=2)
         b = np.random.RandomState(2).rand(4000)
@@ -344,8 +344,8 @@ class TestStreamedSPIKE:
 
     def test_matches_dist_banded(self):
         """Same answer as the mesh path (DistBandedLU.factor_device)."""
-        from csparse3_tpu.linalg import StreamedSPIKE
-        from csparse3_tpu.parallel import DistBandedLU
+        from csparse3_jax.linalg import StreamedSPIKE
+        from csparse3_jax.parallel import DistBandedLU
         from jax.sharding import Mesh
 
         devs = jax.devices()
@@ -360,7 +360,7 @@ class TestStreamedSPIKE:
                                    atol=2e-5)
 
     def test_unsymmetric_general_path(self):
-        from csparse3_tpu.linalg import StreamedSPIKE
+        from csparse3_jax.linalg import StreamedSPIKE
 
         n = 2000
         rng = np.random.RandomState(5)
@@ -375,8 +375,8 @@ class TestStreamedSPIKE:
         assert res < 1e-4, res
 
     def test_complex_via_embedding(self):
-        from csparse3_tpu.linalg import StreamedSPIKE
-        from csparse3_tpu.models.grids import synthetic_grid, ybus
+        from csparse3_jax.linalg import StreamedSPIKE
+        from csparse3_jax.models.grids import synthetic_grid, ybus
 
         n = 3000
         g = synthetic_grid(n, seed=9)
@@ -396,7 +396,7 @@ class TestStreamedSPIKE:
         chunk, each pad block's unit diagonal must land in its OWNING
         chunk — lumping them onto the last chunk left earlier chunks
         with singular all-zero D blocks (NaN solve)."""
-        from csparse3_tpu.linalg import StreamedSPIKE
+        from csparse3_jax.linalg import StreamedSPIKE
 
         n = 136   # s=8 -> nblk=17, m=3, nb=24: pad blocks 17..23
         main = 4.0 * np.ones(n)
@@ -415,7 +415,7 @@ class TestStreamedSPIKE:
         """Regression (r5 review): P=1 has no interfaces — the local
         sweep IS the solution (the reduced factor would crash on a
         zero-length scan)."""
-        from csparse3_tpu.linalg import StreamedSPIKE
+        from csparse3_jax.linalg import StreamedSPIKE
 
         A, As = self._sys(2000, seed=6)
         sk = StreamedSPIKE(A, P=1)
@@ -429,7 +429,7 @@ class TestStreamedSPIKE:
         """Regression (r5 review): a block size that was legal for the
         complex system (s >= bw) must stay legal after the interleaved
         embedding doubles the bandwidth."""
-        from csparse3_tpu.linalg import StreamedSPIKE, bandwidth
+        from csparse3_jax.linalg import StreamedSPIKE, bandwidth
 
         n = 600
         rng = np.random.RandomState(9)

@@ -5,8 +5,8 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-import csparse3_tpu as cst
-from csparse3_tpu.ops import bsr_ops
+import csparse3_jax as cst
+from csparse3_jax.ops import bsr_ops
 
 
 def _rand_bsr(m, n, R, C, density, seed):

@@ -10,11 +10,11 @@ import pytest
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
-import csparse3_tpu as cst
+import csparse3_jax as cst
 import importlib
 
-btf_mod = importlib.import_module('csparse3_tpu.linalg.btf')
-from csparse3_tpu.linalg.btf import BTFLU, btf, btf_splu, max_transversal
+btf_mod = importlib.import_module('csparse3_jax.linalg.btf')
+from csparse3_jax.linalg.btf import BTFLU, btf, btf_splu, max_transversal
 
 
 def _random_reducible(n, nb, seed):

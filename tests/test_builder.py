@@ -4,7 +4,7 @@
 import numpy as np
 import scipy.sparse as sp
 
-import csparse3_tpu as cst
+import csparse3_jax as cst
 
 
 def test_setitem_cases():

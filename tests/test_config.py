@@ -5,8 +5,8 @@ mirroring the csr.h:591 overflow guard), scoped updates."""
 import jax.numpy as jnp
 import numpy as np
 
-import csparse3_tpu as cst
-from csparse3_tpu import config
+import csparse3_jax as cst
+from csparse3_jax import config
 
 from conftest import rand_sp
 

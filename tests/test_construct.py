@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-import csparse3_tpu as cst
+import csparse3_jax as cst
 
 from conftest import assert_csc_equal, rand_sp
 
@@ -115,7 +115,7 @@ def test_scipy_adoption(golden63):
 
 def test_full_format_roundtrip(golden63):
     """coo -> csc -> csr -> csc -> bsr -> dense -> csc -> dia -> csc."""
-    import csparse3_tpu as cst
+    import csparse3_jax as cst
 
     A = cst.CSC.from_scipy(golden63)
     coo = A.to_coo()
@@ -143,8 +143,8 @@ def test_real_equivalent_interleaved_and_block():
     layouts represent the complex product exactly."""
     import numpy as np
 
-    import csparse3_tpu as cst
-    from csparse3_tpu.ops.construct import real_equivalent
+    import csparse3_jax as cst
+    from csparse3_jax.ops.construct import real_equivalent
 
     rng = np.random.RandomState(0)
     n = 60
@@ -185,7 +185,7 @@ def test_rowgather_edge_cases():
     import jax.numpy as jnp
     import numpy as np
 
-    from csparse3_tpu.ops.gather import ROWG_K, rowgather
+    from csparse3_jax.ops.gather import ROWG_K, rowgather
 
     rng = np.random.RandomState(0)
     v = rng.rand(1000).astype(np.float32)

@@ -5,8 +5,8 @@ import pytest
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
-from csparse3_tpu.models.contingency import DCContingency
-from csparse3_tpu.models.grids import SLACK, ieee14, synthetic_grid
+from csparse3_jax.models.contingency import DCContingency
+from csparse3_jax.models.grids import SLACK, ieee14, synthetic_grid
 
 
 def _oracle_outage(g, k):
@@ -70,7 +70,7 @@ def test_synthetic_sample_and_batching():
 
 
 def test_base_theta_matches_dc_power_flow():
-    from csparse3_tpu.models.powerflow import dc_power_flow
+    from csparse3_jax.models.powerflow import dc_power_flow
 
     g = ieee14()
     ca = DCContingency(g)
@@ -99,7 +99,7 @@ def test_islanding_with_noisy_pivot():
     slack, but cancellation leaves round-off pivots instead of exact
     zeros — the solution is finite backward-stable garbage that only the
     KLU-style pivot-ratio estimate catches."""
-    from csparse3_tpu.models.grids import PQ, Grid
+    from csparse3_jax.models.grids import PQ, Grid
 
     n = 5
     g = Grid(n_bus=n, f=np.array([0, 1, 2, 3]), t=np.array([1, 2, 3, 4]),
@@ -126,9 +126,9 @@ def test_ac_contingency_vs_host_newton():
     """Full-AC N-1 vs per-outage host Newton on IEEE14 (subset of
     outages; the vmapped device sweep must match the sequential oracle
     and flag the islanding branch as not-ok)."""
-    from csparse3_tpu.models.contingency import ACContingency
-    from csparse3_tpu.models.grids import Grid
-    from csparse3_tpu.models.powerflow import newton_raphson
+    from csparse3_jax.models.contingency import ACContingency
+    from csparse3_jax.models.grids import Grid
+    from csparse3_jax.models.powerflow import newton_raphson
 
     g = ieee14()
     ca = ACContingency(g)
@@ -166,7 +166,7 @@ def test_outage_bounds_checked():
     ca = DCContingency(g)
     with pytest.raises(IndexError):
         ca.run(np.array([g.n_branch]))  # 1-based ids would clamp silently
-    from csparse3_tpu.models.contingency import ACContingency
+    from csparse3_jax.models.contingency import ACContingency
 
     with pytest.raises(IndexError):
         ACContingency(g).run(np.array([-1]))
@@ -176,7 +176,7 @@ def test_ac_run_sharded_matches_run():
     import jax
     from jax.sharding import Mesh
 
-    from csparse3_tpu.models.contingency import ACContingency
+    from csparse3_jax.models.contingency import ACContingency
 
     g = ieee14()
     ca = ACContingency(g)

@@ -9,8 +9,8 @@ import pytest
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
-import csparse3_tpu as cst
-from csparse3_tpu import config
+import csparse3_jax as cst
+from csparse3_jax import config
 
 
 @pytest.fixture
@@ -26,8 +26,8 @@ def test_int64_index_end_to_end(int64_indices):
     (A true >=2^31-nnz case cannot allocate here; this exercises the
     full int64 index path the config declares — the overflow regime's
     dtype plumbing, reference csr.h:591-596 overflow guard.)"""
-    from csparse3_tpu.linalg import splu
-    from csparse3_tpu.models.grids import synthetic_grid
+    from csparse3_jax.linalg import splu
+    from csparse3_jax.models.grids import synthetic_grid
 
     n = 400
     g = synthetic_grid(n, seed=0)
@@ -127,9 +127,9 @@ def test_int_spgemm_all_paths():
     device paths (SpGEMMPlan.numeric, ESC) compute in the configured
     narrowed dtype (int64 -> int32, mirroring the f64 -> f32 device
     value policy)."""
-    from csparse3_tpu.ops import construct
-    from csparse3_tpu.ops.spgemm import spgemm_symbolic
-    from csparse3_tpu.ops.spgemm_device import spgemm_device
+    from csparse3_jax.ops import construct
+    from csparse3_jax.ops.spgemm import spgemm_symbolic
+    from csparse3_jax.ops.spgemm_device import spgemm_device
 
     rng = np.random.RandomState(11)
     for dt in (np.int8, np.int16, np.int32):

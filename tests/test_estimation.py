@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from csparse3_tpu.models.estimation import (
+from csparse3_jax.models.estimation import (
     DCMeasurements,
     dc_state_estimation,
     largest_normalized_residual,
 )
-from csparse3_tpu.models.grids import SLACK, ieee14, synthetic_grid
-from csparse3_tpu.models.powerflow import dc_power_flow
+from csparse3_jax.models.grids import SLACK, ieee14, synthetic_grid
+from csparse3_jax.models.powerflow import dc_power_flow
 
 
 def _true_state(g):

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-import csparse3_tpu as cst
+import csparse3_jax as cst
 
 from conftest import rand_sp
 
@@ -170,7 +170,7 @@ def test_bsr_surface_vs_scipy():
     np.testing.assert_allclose(np.asarray(p.todense()), (a @ c).toarray(),
                                rtol=1e-10)
     x = np.ones((16, 3))
-    # dense product runs on device (MXU precision at the session dtype)
+    # dense product runs on device (matmul precision at the session dtype)
     np.testing.assert_allclose(np.asarray(A @ x)[:24], a @ x,
                                rtol=0, atol=1e-4 * np.abs(a.data).sum())
     np.testing.assert_allclose(A.to_scipy().toarray(), a.toarray())
@@ -182,7 +182,7 @@ def test_bsr_surface_vs_scipy():
 
 def test_bcoo_roundtrip():
     import scipy.sparse as sp
-    from csparse3_tpu import CSC
+    from csparse3_jax import CSC
 
     rng = np.random.RandomState(3)
     s = sp.random(40, 23, density=0.1, random_state=rng, format="csc")
@@ -196,7 +196,7 @@ def test_bcoo_roundtrip():
 
 def test_bcoo_matvec_agrees():
     import scipy.sparse as sp
-    from csparse3_tpu import CSC
+    from csparse3_jax import CSC
 
     rng = np.random.RandomState(4)
     s = sp.random(30, 30, density=0.15, random_state=rng, format="csc")
@@ -209,7 +209,7 @@ def test_bcoo_matvec_agrees():
 def test_bcoo_rejects_batched():
     import jax.experimental.sparse as jsparse
     import pytest
-    from csparse3_tpu import CSC
+    from csparse3_jax import CSC
 
     dense = jnp.zeros((2, 3, 3)).at[:, 0, 0].set(1.0)
     b = jsparse.BCOO.fromdense(dense, n_batch=1)

@@ -7,7 +7,7 @@ import pytest
 import scipy.sparse as sp
 from scipy.sparse.csgraph import connected_components
 
-import csparse3_tpu as cst
+import csparse3_jax as cst
 
 
 def test_grid5_flow(grid5_lines):

@@ -3,9 +3,9 @@
 import numpy as np
 import scipy.sparse as sp
 
-import csparse3_tpu as cst
-from csparse3_tpu.utils import io as cio
-from csparse3_tpu.utils.profiling import Timer, compare_with_scipy, timeit
+import csparse3_jax as cst
+from csparse3_jax.utils import io as cio
+from csparse3_jax.utils.profiling import Timer, compare_with_scipy, timeit
 
 from conftest import rand_sp
 
@@ -67,10 +67,10 @@ def test_timeit_sync():
 
 
 def test_banded_roundtrip(tmp_path):
-    import csparse3_tpu as cst
-    from csparse3_tpu.linalg import BandedLU
-    from csparse3_tpu.models.grids import synthetic_grid
-    from csparse3_tpu.utils.io import load_banded, save_banded
+    import csparse3_jax as cst
+    from csparse3_jax.linalg import BandedLU
+    from csparse3_jax.models.grids import synthetic_grid
+    from csparse3_jax.utils.io import load_banded, save_banded
 
     n = 1000
     g = synthetic_grid(n, seed=3)
@@ -91,3 +91,83 @@ def test_banded_roundtrip(tmp_path):
     x = np.asarray(plan2(b))
     ref = plan.solve_host(b.astype(np.float64))
     assert np.abs(x - ref).max() / np.abs(ref).max() < 5e-4
+
+
+# ---------------------------------------------------------------------------
+# trace reduction (utils/roofline.py) on a small recorded trace
+# ---------------------------------------------------------------------------
+
+# the shape of a GPU profile's Chrome trace: one host process, one device
+# process whose XLA-op and stream lines overlap in time
+_TRACE = {"traceEvents": [
+    {"ph": "M", "pid": 1, "name": "process_name",
+     "args": {"name": "/host:CPU"}},
+    {"ph": "M", "pid": 7, "name": "process_name",
+     "args": {"name": "/device:GPU:0"}},
+    {"ph": "M", "pid": 8, "name": "process_name",
+     "args": {"name": "/device:GPU:1"}},
+    {"ph": "X", "pid": 1, "tid": 1, "ts": 0.0, "dur": 100.0,
+     "name": "PjitFunction"},
+    {"ph": "X", "pid": 7, "tid": 2, "ts": 10.0, "dur": 5.0,
+     "name": "fusion"},
+    {"ph": "X", "pid": 7, "tid": 3, "ts": 12.0, "dur": 5.0,
+     "name": "fusion.1"},
+    {"ph": "X", "pid": 7, "tid": 2, "ts": 30.0, "dur": 2.0,
+     "name": "gather"},
+    {"ph": "X", "pid": 8, "tid": 2, "ts": 40.0, "dur": 4.0,
+     "name": "fusion"},
+]}
+
+
+def test_device_pids_selects_gpu_tracks():
+    from csparse3_jax.utils.roofline import device_pids
+
+    assert device_pids(_TRACE) == {7, 8}
+    host_only = {"traceEvents": [{"ph": "M", "pid": 3, "name": "process_name",
+                                 "args": {"name": "/host:CPU"}}]}
+    assert device_pids(host_only) == set()
+
+
+def test_device_busy_is_union_of_intervals():
+    from csparse3_jax.utils.roofline import device_busy_s
+
+    ev = _TRACE["traceEvents"]
+    # [10, 17) + [30, 32) on GPU 0: overlapping lines count once
+    assert abs(device_busy_s(ev, {7}) - 9e-6) < 1e-12
+    assert abs(device_busy_s(ev, {7, 8}) - 13e-6) < 1e-12
+    assert device_busy_s(ev, set()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# persistent compile cache (utils/compile_cache.py)
+# ---------------------------------------------------------------------------
+
+def test_compile_cache_env_wins(monkeypatch, tmp_path):
+    from csparse3_jax.utils.compile_cache import cache_dir
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert cache_dir() == str(tmp_path)
+
+
+def test_compile_cache_fixed_repo_path(monkeypatch):
+    import os
+
+    from csparse3_jax.utils.compile_cache import cache_dir
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert cache_dir() == os.path.join(root, ".jax_cache")
+
+
+def test_enable_compile_cache_sets_jax_config(monkeypatch, tmp_path):
+    import jax
+
+    from csparse3_jax.utils.compile_cache import enable_compile_cache
+
+    old = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    try:
+        assert enable_compile_cache() == str(tmp_path)
+        assert jax.config.jax_compilation_cache_dir == str(tmp_path)
+    finally:
+        jax.config.update("jax_compilation_cache_dir", old)

@@ -12,9 +12,9 @@ import scipy.sparse.linalg as spla
 
 import jax
 
-import csparse3_tpu as cst
-from csparse3_tpu import linalg
-from csparse3_tpu.models.grids import synthetic_grid, ybus
+import csparse3_jax as cst
+from csparse3_jax import linalg
+from csparse3_jax.models.grids import synthetic_grid, ybus
 
 
 def _bprime(n, seed=1, shift=3.0):
@@ -105,10 +105,9 @@ def test_ldlt_rect_raises():
 
 def test_container_traced_no_upload():
     """Regression: eager conversions must not touch the lazy-upload
-    properties (complex uploads are fatal on some attachments; real ones
-    are wasted work).  construct.transpose on a host container must leave
+    properties (uploads there are wasted work).  construct.transpose on a host container must leave
     the raw fields as numpy."""
-    from csparse3_tpu.ops import construct
+    from csparse3_jax.ops import construct
 
     a = sp.random(60, 40, density=0.1,
                   random_state=np.random.RandomState(0)).astype(complex)

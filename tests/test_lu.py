@@ -9,8 +9,8 @@ import pytest
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
-import csparse3_tpu as cst
-from csparse3_tpu import linalg as cla
+import csparse3_jax as cst
+from csparse3_jax import linalg as cla
 
 from conftest import rand_sp
 
@@ -173,10 +173,10 @@ def test_level_schedule():
 
 
 class TestDenseTailPlan:
-    """Hybrid level-scheduled + dense-MXU-tail solve plans."""
+    """Hybrid level-scheduled + dense-matmul-tail solve plans."""
 
     def _grid_lu(self, n=3000, ordering="amd"):
-        from csparse3_tpu.models.grids import synthetic_grid
+        from csparse3_jax.models.grids import synthetic_grid
 
         g = synthetic_grid(n, seed=1)
         bp = 1.0 / g.x
@@ -188,7 +188,7 @@ class TestDenseTailPlan:
                         ordering=ordering), n
 
     def test_auto_plan_uses_dense_tail_and_matches(self):
-        from csparse3_tpu.linalg.trisolve import DenseTailTriSolvePlan
+        from csparse3_jax.linalg.trisolve import DenseTailTriSolvePlan
 
         lu, n = self._grid_lu()
         plan = lu.solve_plan()  # auto
@@ -198,7 +198,7 @@ class TestDenseTailPlan:
         np.testing.assert_allclose(x, lu.solve_host(b), rtol=1e-9, atol=1e-11)
 
     def test_level_style_still_available(self):
-        from csparse3_tpu.linalg.trisolve import TriSolvePlan
+        from csparse3_jax.linalg.trisolve import TriSolvePlan
 
         lu, n = self._grid_lu(n=1200)
         plan = lu.solve_plan("level")
@@ -222,7 +222,7 @@ class TestSupernodal:
     'supernodal')."""
 
     def _need_native(self):
-        pytest.importorskip("csparse3_tpu.native.host_ext")
+        pytest.importorskip("csparse3_jax.native.host_ext")
 
     @pytest.mark.parametrize("n", [50, 300, 1500])
     def test_forced_supernodal_matches_scipy(self, n):
@@ -307,8 +307,8 @@ def test_iterative_refinement_f32_factor():
     one sweep (the LAPACK dsgesv mixed-precision pattern)."""
     import scipy.sparse.linalg as spla
 
-    from csparse3_tpu.linalg import BandedLU, refine
-    from csparse3_tpu.models.grids import synthetic_grid
+    from csparse3_jax.linalg import BandedLU, refine
+    from csparse3_jax.models.grids import synthetic_grid
 
     n = 1000
     g = synthetic_grid(n, seed=1)

@@ -9,8 +9,8 @@ import io
 import numpy as np
 import pytest
 
-from csparse3_tpu.models import grids
-from csparse3_tpu.models.matpower import load_case, parse_case
+from csparse3_jax.models import grids
+from csparse3_jax.models.matpower import load_case, parse_case
 
 CASE3 = """
 function mpc = case3
@@ -131,7 +131,7 @@ def test_load_case_file(tmp_path):
 
 def test_powerflow_on_parsed_case():
     """A parsed case runs through the solver chain end to end."""
-    from csparse3_tpu.models.powerflow import newton_raphson
+    from csparse3_jax.models.powerflow import newton_raphson
 
     g = parse_case(CASE3)
     vm, va, iters, resid = newton_raphson(g)

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import csparse3_tpu as cst
+import csparse3_jax as cst
 
 from conftest import rand_sp
 
@@ -80,8 +80,8 @@ def test_bsr_spmm(block):
 
 class TestSpMVPlanLayouts:
     def test_ell_matches_stream(self, rand_pair):
-        import csparse3_tpu as cst
-        from csparse3_tpu.ops.matvec import SpMVPlan
+        import csparse3_jax as cst
+        from csparse3_jax.ops.matvec import SpMVPlan
 
         a, _ = rand_pair
         A = cst.CSC.from_scipy(a)
@@ -98,8 +98,8 @@ class TestSpMVPlanLayouts:
                                    rtol=1e-12, atol=1e-13)
 
     def test_ell_multi_rhs(self, rand_pair):
-        import csparse3_tpu as cst
-        from csparse3_tpu.ops.matvec import SpMVPlan
+        import csparse3_jax as cst
+        from csparse3_jax.ops.matvec import SpMVPlan
 
         a, _ = rand_pair
         A = cst.CSC.from_scipy(a)
@@ -109,8 +109,8 @@ class TestSpMVPlanLayouts:
                                    rtol=1e-12, atol=1e-13)
 
     def test_ell_jit_and_pytree(self, rand_pair):
-        import csparse3_tpu as cst
-        from csparse3_tpu.ops.matvec import SpMVPlan
+        import csparse3_jax as cst
+        from csparse3_jax.ops.matvec import SpMVPlan
 
         a, _ = rand_pair
         A = cst.CSC.from_scipy(a)
@@ -121,8 +121,8 @@ class TestSpMVPlanLayouts:
                                    rtol=1e-12, atol=1e-13)
 
     def test_outlier_row_falls_back_to_stream(self):
-        import csparse3_tpu as cst
-        from csparse3_tpu.ops.matvec import SpMVPlan
+        import csparse3_jax as cst
+        from csparse3_jax.ops.matvec import SpMVPlan
 
         # one dense row in an otherwise ultra-sparse matrix
         n = 500
@@ -141,8 +141,8 @@ class TestSpMVPlanLayouts:
 
 class TestDIAPlan:
     def test_matches_scipy_after_rcm(self):
-        from csparse3_tpu.linalg.ordering import rcm
-        from csparse3_tpu.models.grids import synthetic_grid, ybus
+        from csparse3_jax.linalg.ordering import rcm
+        from csparse3_jax.models.grids import synthetic_grid, ybus
 
         g = synthetic_grid(500, seed=3)
         Y, _, _ = ybus(g)
@@ -245,3 +245,104 @@ class TestSymDIAPlan:
         a = sp.diags([np.ones(5), np.ones(8), np.ones(7)], [-3, 0, 1]).tocsc()
         with pytest.raises(ValueError):
             cst.SymDIAPlan(cst.CSC.from_scipy(a))
+
+
+# ---------------------------------------------------------------------------
+# Split-complex and banded SpMV plans vs scipy: the cases the removed
+# band/points kernels (removed) were tested on, now on the plans that replace them
+# ---------------------------------------------------------------------------
+
+def _spmv_case(case):
+    """(CSC, scipy) for one matrix family of the SpMV-plan tests."""
+    import scipy.sparse as sp
+
+    from csparse3_jax.models.grids import synthetic_grid, ybus
+
+    if case == "complex":          # a Ybus: complex symmetric
+        Y, _, _ = ybus(synthetic_grid(300, seed=11))
+        return Y, Y.to_scipy().tocsc()
+    if case == "real":
+        a = rand_sp(200, 200, 0.03, seed=12) + sp.eye(200)
+        return cst.CSC.from_scipy(a.tocsc()), a.tocsc()
+    if case == "banded":           # pure band, no off-band points
+        n = 257
+        a = sp.diags([np.arange(1.0, n), 4.0 + np.arange(n),
+                      -np.arange(1.0, n), np.full(n - 3, 0.5)],
+                     [-1, 0, 1, 3], shape=(n, n)).tocsc()
+        return cst.CSC.from_scipy(a), a
+    # "spread": a narrow band plus entries far from the diagonal
+    n = 300
+    rng = np.random.RandomState(13)
+    far_r = rng.randint(0, n, 40)
+    far_c = (far_r + rng.randint(n // 3, 2 * n // 3, 40)) % n
+    a = (sp.diags([np.ones(n - 1), 3.0 * np.ones(n), np.ones(n - 1)],
+                  [-1, 0, 1], shape=(n, n))
+         + sp.csc_matrix((rng.rand(40) + 1j * rng.rand(40),
+                          (far_r, far_c)), shape=(n, n))).tocsc()
+    a.sum_duplicates()
+    return cst.CSC.from_scipy(a), a
+
+
+@pytest.mark.parametrize("case", ["complex", "real", "banded", "spread"])
+@pytest.mark.parametrize("kind", ["ell", "dia"])
+def test_split_plans_match_scipy(kind, case):
+    A, a_sp = _spmv_case(case)
+    plan = cst.SplitSpMV(A) if kind == "ell" else cst.SplitDIA(A)
+    rng = np.random.RandomState(14)
+    xr, xi = rng.rand(A.n), rng.rand(A.n)
+    yr, yi = plan(jnp.asarray(xr), jnp.asarray(xi))
+    z = a_sp @ (xr + 1j * xi)
+    np.testing.assert_allclose(np.asarray(yr), z.real, rtol=1e-12,
+                               atol=1e-12)
+    np.testing.assert_allclose(np.asarray(yi), z.imag, rtol=1e-12,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("layout", ["ell", "stream", "complex"])
+def test_spmv_plan_batch_rhs(layout):
+    """(n, B) right-hand sides through SpMVPlan's multi-RHS path."""
+    A, a_sp = _spmv_case("complex" if layout == "complex" else "real")
+    plan = cst.SpMVPlan(A, layout=None if layout == "complex" else layout)
+    X = np.random.RandomState(15).rand(A.n, 7)
+    np.testing.assert_allclose(np.asarray(plan(jnp.asarray(X))), a_sp @ X,
+                               rtol=1e-12, atol=1e-12)
+
+
+def test_split_spmv_batch_rhs():
+    A, a_sp = _spmv_case("complex")
+    rng = np.random.RandomState(16)
+    Xr, Xi = rng.rand(A.n, 5), rng.rand(A.n, 5)
+    Yr, Yi = cst.SplitSpMV(A)(jnp.asarray(Xr), jnp.asarray(Xi))
+    Z = a_sp @ (Xr + 1j * Xi)
+    np.testing.assert_allclose(np.asarray(Yr) + 1j * np.asarray(Yi), Z,
+                               rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("kind", ["split", "dia", "symdia"])
+def test_split_plan_as_jit_argument(kind):
+    """Plans are pytrees: a plan passed INTO jit (not closed over) gives
+    the same product, and a second plan with new values reuses the
+    compiled program."""
+    A, a_sp = _spmv_case("complex")
+    make = {"split": cst.SplitSpMV, "dia": cst.SplitDIA,
+            "symdia": cst.SplitSymDIA}[kind]
+    f = jax.jit(lambda p, a, b: p(a, b))
+    rng = np.random.RandomState(17)
+    xr, xi = jnp.asarray(rng.rand(A.n)), jnp.asarray(rng.rand(A.n))
+    for scale in (1.0, 2.0):
+        As = cst.CSC(A.m, A.n, *A.np_arrays()[:2],
+                     scale * A.np_arrays()[2])
+        yr, yi = f(make(As), xr, xi)
+        z = scale * (a_sp @ (np.asarray(xr) + 1j * np.asarray(xi)))
+        np.testing.assert_allclose(np.asarray(yr) + 1j * np.asarray(yi), z,
+                                   rtol=1e-12, atol=1e-12)
+    assert f._cache_size() == 1
+
+
+@pytest.mark.parametrize("op", ["spmv", "spmm"])
+def test_unknown_backend_raises(op):
+    """Only the XLA and numpy backends exist."""
+    a = cst.CSC.from_scipy(rand_sp(10, 10, 0.2, seed=18))
+    x = np.ones(10) if op == "spmv" else np.ones((10, 2))
+    with pytest.raises(ValueError, match="backend"):
+        getattr(cst, op)(a, x, backend="pallas")

@@ -11,12 +11,12 @@ import pytest
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
-import csparse3_tpu as cst
-from csparse3_tpu.linalg.lu_host import lu_factor_host
-from csparse3_tpu.linalg.ordering import mindeg
-from csparse3_tpu.linalg.trisolve import lsolve, usolve
+import csparse3_jax as cst
+from csparse3_jax.linalg.lu_host import lu_factor_host
+from csparse3_jax.linalg.ordering import mindeg
+from csparse3_jax.linalg.trisolve import lsolve, usolve
 
-host_ext = pytest.importorskip("csparse3_tpu.native.host_ext")
+host_ext = pytest.importorskip("csparse3_jax.native.host_ext")
 
 from conftest import rand_sp
 
@@ -94,7 +94,7 @@ def test_amd_is_permutation_and_reduces_fill():
 
 
 def test_amd_quality_close_to_python_mindeg():
-    from csparse3_tpu.models.grids import synthetic_grid, ybus
+    from csparse3_jax.models.grids import synthetic_grid, ybus
 
     g = synthetic_grid(800, seed=5)
     Y, _, _ = ybus(g)
@@ -142,7 +142,7 @@ def test_rcm_native_matches_python_bandwidth():
     Python oracle's (tie-breaking may differ)."""
     import scipy.sparse as sp
 
-    from csparse3_tpu.linalg.ordering import _rcm_py, rcm
+    from csparse3_jax.linalg.ordering import _rcm_py, rcm
 
     rng = np.random.RandomState(5)
     n = 400
@@ -166,8 +166,8 @@ def test_rcm_native_matches_python_bandwidth():
 def test_nd_is_permutation_and_fill_competitive():
     """Nested dissection must be a valid elimination order whose fill on a
     lattice grid is within 2x of AMD's (it wins at larger scale)."""
-    from csparse3_tpu.linalg import splu
-    from csparse3_tpu.models.grids import synthetic_grid
+    from csparse3_jax.linalg import splu
+    from csparse3_jax.models.grids import synthetic_grid
 
     n = 3000
     g = synthetic_grid(n, seed=1)
@@ -177,7 +177,7 @@ def test_nd_is_permutation_and_fill_competitive():
     vals = np.concatenate([bp, bp, -bp, -bp])
     B = cst.from_triplets(rows, cols, vals, (n, n))
     Breg = cst.add(B, cst.diags(np.full(n, 3.0)))
-    from csparse3_tpu.linalg.ordering import nd
+    from csparse3_jax.linalg.ordering import nd
 
     p = nd(Breg)
     assert sorted(p.tolist()) == list(range(n))
@@ -194,7 +194,7 @@ def test_hostmem_allocator_installed():
     """The NEP-49 populate allocator is active after package import (when
     the extension is built) and large buffers behave correctly."""
     try:
-        from csparse3_tpu.native import _npalloc  # noqa: F401
+        from csparse3_jax.native import _npalloc  # noqa: F401
     except ImportError:
         return  # extension not built; mallopt-only mode
     # numpy>=2 moved multiarray under _core; no public home for this yet
@@ -220,7 +220,7 @@ def test_lu_exact_cancellation_keeps_pruning_sound():
     import scipy.sparse as sp
     import scipy.sparse.linalg as spla
 
-    from csparse3_tpu.linalg import splu
+    from csparse3_jax.linalg import splu
 
     for seed in range(8):
         rng = np.random.RandomState(seed)
@@ -236,3 +236,58 @@ def test_lu_exact_cancellation_keeps_pruning_sound():
         ref = spla.spsolve(a, b)
         np.testing.assert_allclose(x, ref, rtol=1e-9, atol=1e-11,
                                    err_msg=f"seed {seed}")
+
+
+# ---------------------------------------------------------------------------
+# build from source on first use (csparse3_jax/native/__init__.py)
+# ---------------------------------------------------------------------------
+
+def _native_tree(tmp_path):
+    import os
+    import shutil
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    src = tmp_path / "native"
+    shutil.copytree(os.path.join(root, "native"), src)
+    out = tmp_path / "out"
+    out.mkdir()
+    return str(src), str(out)
+
+
+def test_ensure_built_rebuilds_only_when_stale(tmp_path):
+    import os
+
+    from csparse3_jax.native import ensure_built
+
+    src, out = _native_tree(tmp_path)
+    path = ensure_built("_npalloc.so", src_dir=src, out_dir=out)
+    t_built = os.path.getmtime(path)
+    assert ensure_built("_npalloc.so", src_dir=src, out_dir=out) == path
+    assert os.path.getmtime(path) == t_built            # fresh: no rebuild
+    future = t_built + 10
+    os.utime(os.path.join(src, "npalloc.c"), (future, future))
+    ensure_built("_npalloc.so", src_dir=src, out_dir=out)
+    assert os.path.getmtime(path) > t_built             # stale: rebuilt
+    assert sorted(os.listdir(out)) == [".build.lock", "_npalloc.so"]
+
+
+def _build_worker(args):
+    from csparse3_jax.native import ensure_built
+
+    return ensure_built("_npalloc.so", src_dir=args[0], out_dir=args[1])
+
+
+def test_ensure_built_concurrent_processes(tmp_path):
+    """More builders than cores race on one fresh tree: the lock lets one
+    build, the others wait and reuse it, and no temporary file is left."""
+    import multiprocessing
+    import os
+
+    src, out = _native_tree(tmp_path)
+    ctx = multiprocessing.get_context("spawn")
+    n = (os.cpu_count() or 4) + 2
+    with ctx.Pool(n) as pool:
+        paths = pool.map_async(_build_worker, [(src, out)] * n).get(
+            timeout=600)
+    assert len(set(paths)) == 1 and os.path.exists(paths[0])
+    assert sorted(os.listdir(out)) == [".build.lock", "_npalloc.so"]

@@ -1,5 +1,5 @@
 """Distributed layer tests on the virtual 8-device CPU mesh (SURVEY §4:
-the TPU-world answer to testing multi-node without a cluster)."""
+multi-device sharding without a cluster)."""
 
 import jax
 import jax.numpy as jnp
@@ -8,8 +8,8 @@ import pytest
 import scipy.sparse as sp
 from jax.sharding import Mesh
 
-import csparse3_tpu as cst
-from csparse3_tpu.parallel import (
+import csparse3_jax as cst
+from csparse3_jax.parallel import (
     BlockJacobi,
     RowPartition,
     dist_bicgstab,
@@ -96,7 +96,7 @@ class TestDistSpMV:
         )
 
     def test_complex_ybus(self):
-        from csparse3_tpu.models.grids import synthetic_grid, ybus
+        from csparse3_jax.models.grids import synthetic_grid, ybus
 
         grid = synthetic_grid(120, seed=4)
         Y, _, _ = ybus(grid)
@@ -159,7 +159,7 @@ class TestDistSolve:
     def test_bicgstab_complex_ybus_regularized(self):
         """Distributed solve of a (regularized) admittance system — the
         config-5 shape at toy size."""
-        from csparse3_tpu.models.grids import synthetic_grid, ybus
+        from csparse3_jax.models.grids import synthetic_grid, ybus
 
         grid = synthetic_grid(96, seed=8)
         Y, _, _ = ybus(grid)
@@ -176,7 +176,7 @@ class TestDistSolve:
 
 class TestIterativeSingleDevice:
     def test_cg_vs_dense(self):
-        from csparse3_tpu.linalg.iterative import cg, jacobi_prec
+        from csparse3_jax.linalg.iterative import cg, jacobi_prec
 
         a = banded_spd(60, bw=2, seed=21)
         A = cst.CSC.from_scipy(a)
@@ -186,7 +186,7 @@ class TestIterativeSingleDevice:
         np.testing.assert_allclose(a @ np.asarray(x), b, rtol=1e-9, atol=1e-10)
 
     def test_bicgstab_complex(self):
-        from csparse3_tpu.linalg.iterative import bicgstab
+        from csparse3_jax.linalg.iterative import bicgstab
 
         a = banded_spd(60, bw=2, seed=22).astype(complex)
         a = a + sp.eye(60) * 0.3j
@@ -197,7 +197,7 @@ class TestIterativeSingleDevice:
         np.testing.assert_allclose(a @ np.asarray(x), b, rtol=1e-7, atol=1e-8)
 
     def test_gmres(self):
-        from csparse3_tpu.linalg.iterative import gmres
+        from csparse3_jax.linalg.iterative import gmres
 
         a = banded_spd(50, bw=2, seed=23).tolil()
         a[3, 10] += 0.4
@@ -208,7 +208,7 @@ class TestIterativeSingleDevice:
         np.testing.assert_allclose(a @ np.asarray(x), b, rtol=1e-7, atol=1e-8)
 
     def test_gmres_jittable(self):
-        from csparse3_tpu.linalg.iterative import gmres
+        from csparse3_jax.linalg.iterative import gmres
 
         a = banded_spd(40, bw=2, seed=24)
         plan = cst.SpMVPlan(cst.CSC.from_scipy(a))
@@ -228,8 +228,8 @@ def test_diag_jacobi_prec_converges_faster():
     import numpy as np
     from jax.sharding import Mesh
 
-    import csparse3_tpu as cst
-    from csparse3_tpu.parallel import DiagJacobi, dist_cg, partition_rows
+    import csparse3_jax as cst
+    from csparse3_jax.parallel import DiagJacobi, dist_cg, partition_rows
 
     n = 4096
     rng = np.random.RandomState(3)
@@ -252,3 +252,19 @@ def test_diag_jacobi_prec_converges_faster():
         rel = np.linalg.norm(As @ np.asarray(x) - b) / np.linalg.norm(b)
         assert rel < 1e-7
     assert int(it1) <= int(it0)
+
+
+def test_diag_jacobi_reference():
+    """DiagJacobi.apply_local is exactly diag(A)^{-1} b per shard."""
+    from csparse3_jax.parallel import DiagJacobi
+    from csparse3_jax.parallel.partition import partition_rows
+
+    n = 64
+    rng = np.random.RandomState(5)
+    dv = 2.0 + rng.rand(n)
+    A = cst.diags(dv)
+    part = partition_rows(A, 4)
+    prec = DiagJacobi.build(A, part)
+    d = np.asarray(prec.dinv)
+    assert d.shape[0] == 4
+    np.testing.assert_allclose(d.reshape(-1)[:n], 1.0 / dv, rtol=1e-6)

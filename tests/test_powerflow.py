@@ -7,8 +7,8 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-import csparse3_tpu as cst
-from csparse3_tpu.models import (
+import csparse3_jax as cst
+from csparse3_jax.models import (
     FastDecoupled,
     connectivity,
     dc_power_flow,
@@ -130,8 +130,8 @@ def test_newton_synthetic_grid():
 
 class TestNewtonDevice:
     def test_matches_host_newton_ieee14(self):
-        from csparse3_tpu.models.grids import ieee14
-        from csparse3_tpu.models.powerflow import NewtonPowerFlow, newton_raphson
+        from csparse3_jax.models.grids import ieee14
+        from csparse3_jax.models.powerflow import NewtonPowerFlow, newton_raphson
 
         g = ieee14()
         vm, va, it, res = NewtonPowerFlow(g).solve()
@@ -141,8 +141,8 @@ class TestNewtonDevice:
         np.testing.assert_allclose(va, va_r, atol=1e-10)
 
     def test_power_balance_synthetic(self):
-        from csparse3_tpu.models.grids import synthetic_grid, ybus
-        from csparse3_tpu.models.powerflow import NewtonPowerFlow, sbus
+        from csparse3_jax.models.grids import synthetic_grid, ybus
+        from csparse3_jax.models.powerflow import NewtonPowerFlow, sbus
 
         g = synthetic_grid(150, seed=9)
         npf = NewtonPowerFlow(g)
@@ -158,8 +158,8 @@ class TestNewtonDevice:
         np.testing.assert_allclose(s.imag[pq], sb.imag[pq], atol=1e-8)
 
     def test_batched_scenarios(self):
-        from csparse3_tpu.models.grids import synthetic_grid
-        from csparse3_tpu.models.powerflow import NewtonPowerFlow, sbus
+        from csparse3_jax.models.grids import synthetic_grid
+        from csparse3_jax.models.powerflow import NewtonPowerFlow, sbus
 
         g = synthetic_grid(80, seed=10)
         npf = NewtonPowerFlow(g)
@@ -174,8 +174,8 @@ def test_reordered_grid_same_solution():
     """Power-flow solutions are invariant under bus renumbering
     (models.grids.rcm_grid), and the gather-free dia/banded path agrees
     with the default path."""
-    from csparse3_tpu.models.grids import rcm_grid, synthetic_grid
-    from csparse3_tpu.models.powerflow import FastDecoupled
+    from csparse3_jax.models.grids import rcm_grid, synthetic_grid
+    from csparse3_jax.models.powerflow import FastDecoupled
 
     g = synthetic_grid(120, seed=11)
     fd = FastDecoupled(g, tol=1e-10, max_iter=80)
@@ -200,26 +200,22 @@ def test_reordered_grid_same_solution():
     np.testing.assert_allclose(va3, va[perm], atol=1e-8)
 
 
-def test_newton_bandpoints_spmv_matches_ell():
-    from csparse3_tpu.models.grids import synthetic_grid
-    from csparse3_tpu.models.powerflow import NewtonPowerFlow
+@pytest.mark.parametrize("solver_cls", ["NewtonPowerFlow", "FastDecoupled"])
+def test_unknown_spmv_plan_raises(solver_cls):
+    """The Ybus SpMV plan is one of 'ell', 'dia', 'symdia'; anything else
+    (the removed 'bandpoints' among them) is refused up front."""
+    from csparse3_jax.models import powerflow
+    from csparse3_jax.models.grids import ieee14
 
-    g = synthetic_grid(200, seed=7)
-    vm_r, va_r, _, res_r = NewtonPowerFlow(g, spmv="ell").solve()
-    vm_b, va_b, _, res_b = NewtonPowerFlow(g, spmv="bandpoints").solve()
-    assert res_r < 1e-8
-    # the bandpoints plan computes in float32 by design (TPU layout);
-    # the Newton residual floors at f32 SpMV precision
-    assert res_b < 1e-4
-    np.testing.assert_allclose(vm_b, vm_r, rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(va_b, va_r, rtol=1e-4, atol=1e-5)
+    with pytest.raises(ValueError, match="spmv"):
+        getattr(powerflow, solver_cls)(ieee14(), spmv="bandpoints")
 
 
 def test_fdpf_blocklu_solver_matches_default():
     """solver='blocklu' (BandedLU block-Thomas, no sparse factorization)
     reaches the same solution as the default level-scheduled path."""
-    from csparse3_tpu.models.grids import rcm_grid, synthetic_grid
-    from csparse3_tpu.models.powerflow import FastDecoupled
+    from csparse3_jax.models.grids import rcm_grid, synthetic_grid
+    from csparse3_jax.models.powerflow import FastDecoupled
 
     g = synthetic_grid(150, seed=12)
     fd = FastDecoupled(g, tol=1e-10, max_iter=80)
@@ -238,8 +234,8 @@ def test_fdpf_blocklu_solver_matches_default():
 def test_device_newton_blocklu_matches_host():
     """NewtonPowerFlow(solver='blocklu'): the Jacobian refactors on
     device as block-Thomas recurrences; must reach the host solution."""
-    from csparse3_tpu.models.grids import rcm_grid, synthetic_grid
-    from csparse3_tpu.models.powerflow import NewtonPowerFlow, newton_raphson
+    from csparse3_jax.models.grids import rcm_grid, synthetic_grid
+    from csparse3_jax.models.powerflow import NewtonPowerFlow, newton_raphson
 
     g, _ = rcm_grid(synthetic_grid(120, seed=14))
     vmh, vah, ith, resh = newton_raphson(g, tol=1e-10)
@@ -256,8 +252,8 @@ def test_device_newton_multifrontal_matches_host():
     """NewtonPowerFlow(solver='multifrontal'): per-iteration Jacobian
     refactorization as matmul extend-add fronts (static pivoting); must
     reach the host solution."""
-    from csparse3_tpu.models.grids import synthetic_grid
-    from csparse3_tpu.models.powerflow import NewtonPowerFlow, newton_raphson
+    from csparse3_jax.models.grids import synthetic_grid
+    from csparse3_jax.models.powerflow import NewtonPowerFlow, newton_raphson
 
     g = synthetic_grid(120, seed=14)
     vmh, vah, ith, resh = newton_raphson(g, tol=1e-10)
@@ -269,15 +265,15 @@ def test_device_newton_multifrontal_matches_host():
 
 
 def test_multifrontal_growth_gate_fallback_converges():
-    """Pivot-growth gate (VERDICT r4 item 5): with the growth limit
+    """Pivot-growth gate: with the growth limit
     tightened so the very first device factorization trips it, the
     gated iteration must NOT be applied, the solver must fall back to
     host splu with true partial pivoting, and Newton must still reach
     the reference solution."""
     import pytest
 
-    from csparse3_tpu.models.grids import synthetic_grid
-    from csparse3_tpu.models.powerflow import NewtonPowerFlow, newton_raphson
+    from csparse3_jax.models.grids import synthetic_grid
+    from csparse3_jax.models.powerflow import NewtonPowerFlow, newton_raphson
 
     g = synthetic_grid(120, seed=14)
     vmh, vah, _, _ = newton_raphson(g, tol=1e-10)
@@ -306,8 +302,8 @@ def test_multifrontal_growth_gate_batch_fallback():
     """solve_batch re-solves gated scenarios on host."""
     import pytest
 
-    from csparse3_tpu.models.grids import synthetic_grid
-    from csparse3_tpu.models.powerflow import NewtonPowerFlow, sbus
+    from csparse3_jax.models.grids import synthetic_grid
+    from csparse3_jax.models.powerflow import NewtonPowerFlow, sbus
 
     g = synthetic_grid(80, seed=3)
     npf = NewtonPowerFlow(g, tol=1e-10, solver="multifrontal",

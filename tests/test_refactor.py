@@ -6,13 +6,13 @@ import numpy as np
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
-import csparse3_tpu as cst
+import csparse3_jax as cst
 
 from conftest import rand_sp
 
 
 def _case(n, seed, cx=True):
-    from csparse3_tpu.models.grids import synthetic_grid, ybus
+    from csparse3_jax.models.grids import synthetic_grid, ybus
 
     g = synthetic_grid(n, seed=seed)
     Y, _, _ = ybus(g)
@@ -110,8 +110,8 @@ def test_grad_through_refactor_solve():
     sensitivity analysis use case).  Oracle: central finite differences."""
     import jax.numpy as jnp
 
-    from csparse3_tpu import linalg
-    from csparse3_tpu.models.grids import synthetic_grid
+    from csparse3_jax import linalg
+    from csparse3_jax.models.grids import synthetic_grid
 
     n = 200
     g = synthetic_grid(n, seed=1)
@@ -147,7 +147,7 @@ def test_grad_solve_wrt_rhs():
     import jax.numpy as jnp
     import scipy.sparse.linalg as spla
 
-    from csparse3_tpu import linalg
+    from csparse3_jax import linalg
 
     a_sp = rand_sp(80, 80, 0.06, seed=9) + sp.diags(np.full(80, 4.0))
     a = cst.CSC.from_scipy(a_sp.tocsc())

@@ -11,10 +11,10 @@ import pytest
 import scipy.sparse.linalg as spla
 from jax.sharding import Mesh
 
-import csparse3_tpu as cst
-from csparse3_tpu.linalg.ordering import rcm
-from csparse3_tpu.models.grids import synthetic_grid
-from csparse3_tpu.parallel import SchurLU
+import csparse3_jax as cst
+from csparse3_jax.linalg.ordering import rcm
+from csparse3_jax.models.grids import synthetic_grid
+from csparse3_jax.parallel import SchurLU
 
 
 def _grid_matrix(n, seed=2):

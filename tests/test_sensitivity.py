@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from csparse3_tpu.models import (
+from csparse3_jax.models import (
     DCContingency,
     LinearContingency,
     lodf,
     ptdf,
 )
-from csparse3_tpu.models.grids import SLACK, ieee14, synthetic_grid
-from csparse3_tpu.models.powerflow import dc_power_flow
+from csparse3_jax.models.grids import SLACK, ieee14, synthetic_grid
+from csparse3_jax.models.powerflow import dc_power_flow
 
 
 def _base_flows(g):

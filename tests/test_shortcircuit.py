@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from csparse3_tpu.models.grids import PQ, SLACK, Grid, ieee14, ybus
-from csparse3_tpu.models.shortcircuit import (
+from csparse3_jax.models.grids import PQ, SLACK, Grid, ieee14, ybus
+from csparse3_jax.models.shortcircuit import (
     SCResult,
     short_circuit,
     zbus_columns,

@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-import csparse3_tpu as cst
+import csparse3_jax as cst
 
 from conftest import rand_sp
 
@@ -83,8 +83,8 @@ def test_setitem_forbidden(pair):
 def test_sample_offsets():
     import scipy.sparse as sp
 
-    import csparse3_tpu as cst
-    from csparse3_tpu.ops.slicing import sample_offsets
+    import csparse3_jax as cst
+    from csparse3_jax.ops.slicing import sample_offsets
 
     a = sp.random(30, 40, density=0.15, random_state=np.random.RandomState(3),
                   format="csc")

@@ -5,7 +5,7 @@ import jax
 import numpy as np
 import pytest
 
-import csparse3_tpu as cst
+import csparse3_jax as cst
 
 from conftest import assert_csc_equal, rand_sp
 
@@ -97,35 +97,35 @@ def test_identity_product(golden63):
     assert_csc_equal(cst.spgemm(a, i3), golden63)
 
 
-def test_numeric_pallas_f32_matches_scipy():
-    """The fused one-launch numeric kernel (kernels/spgemm_pallas.py)
-    vs scipy, f32 operands (interpret mode on CPU).  Exercised for a
-    pattern with multi-product outputs AND hub columns."""
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.int32])
+def test_numeric_small_operand_matches_scipy(dtype):
+    """SpGEMMPlan.numeric (the v2 XLA compress) on a small operand with
+    multi-product outputs AND a hub column, in each value dtype: exact
+    for integers, to rounding for floats, dtype preserved."""
     import jax.numpy as jnp
     import scipy.sparse as sp
 
-    from csparse3_tpu.ops import construct
-    from csparse3_tpu.ops.spgemm import spgemm_symbolic
+    from csparse3_jax.ops import construct
+    from csparse3_jax.ops.spgemm import spgemm_symbolic
 
     rng = np.random.RandomState(7)
-    a_sp = sp.random(300, 200, density=0.03, format="csc", random_state=rng)
-    # hub column: one dense-ish column to stress per-tile product counts
+    a_sp = sp.random(300, 200, density=0.03, format="csc", random_state=rng,
+                     data_rvs=lambda k: rng.randint(1, 9, k).astype(float))
     a_sp = (a_sp + sp.csc_matrix(
-        (rng.rand(60), (rng.permutation(300)[:60], np.full(60, 5))),
+        (rng.randint(1, 9, 60).astype(float),
+         (rng.permutation(300)[:60], np.full(60, 5))),
         shape=(300, 200))).tocsc()
-    A = cst.CSC.from_scipy(a_sp.astype(np.float64))
+    A = cst.CSC.from_scipy(a_sp)
     B = construct.transpose(A)
     plan = spgemm_symbolic(A, B)
-    assert plan._pallas_maps is not None, "expected fused-kernel regime"
-    a32 = jnp.asarray(a_sp.data.astype(np.float32))
-    ip, ix, dt = B.np_arrays()
-    b32 = jnp.asarray(np.asarray(dt, np.float32))
-    C = plan.numeric(a32, b32)
-    ref = (a_sp @ a_sp.T).tocsc()
-    got = cst.CSC(A.m, A.m, *[np.asarray(v) for v in
-                              (C.indptr, C.indices, np.asarray(C.data))])
-    np.testing.assert_allclose(np.asarray(got.todense()), ref.toarray(),
-                               rtol=1e-6, atol=1e-6)
-    # f64 operands stay on the XLA path (dtype preserved)
-    C64 = plan.numeric(jnp.asarray(a_sp.data), jnp.asarray(dt))
-    assert C64.data.dtype == np.float64
+    a_v = jnp.asarray(np.asarray(A.np_arrays()[2]).astype(dtype))
+    b_v = jnp.asarray(np.asarray(B.np_arrays()[2]).astype(dtype))
+    C = jax.jit(plan.numeric)(a_v, b_v)
+    assert C.data.dtype == a_v.dtype
+    ref = (a_sp @ a_sp.T).toarray()
+    got = np.asarray(C.todense())
+    if np.issubdtype(dtype, np.integer):
+        np.testing.assert_array_equal(got, ref)
+    else:
+        np.testing.assert_allclose(got, ref, rtol=1e-6)
+

@@ -6,8 +6,8 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-import csparse3_tpu as cst
-from csparse3_tpu.ops.spgemm_device import ESCSpGEMM, gram_device, spgemm_device
+import csparse3_jax as cst
+from csparse3_jax.ops.spgemm_device import ESCSpGEMM, gram_device, spgemm_device
 
 
 def _finalize(m, n, ip, r, d, nz):
@@ -107,7 +107,7 @@ class TestGramPlan:
     def _check(self, n, dens, seed):
         import scipy.sparse as sp
 
-        from csparse3_tpu.ops.spgemm import gram_symbolic
+        from csparse3_jax.ops.spgemm import gram_symbolic
 
         a = sp.random(n, n, density=dens, format="csc",
                       random_state=np.random.RandomState(seed))
@@ -126,7 +126,7 @@ class TestGramPlan:
     def test_jit_and_reuse(self):
         import scipy.sparse as sp
 
-        from csparse3_tpu.ops.spgemm import gram_symbolic
+        from csparse3_jax.ops.spgemm import gram_symbolic
 
         a = sp.random(400, 400, density=0.01, format="csc",
                       random_state=np.random.RandomState(3))
@@ -142,7 +142,7 @@ class TestGramPlan:
     def test_empty(self):
         import scipy.sparse as sp
 
-        from csparse3_tpu.ops.spgemm import gram_symbolic
+        from csparse3_jax.ops.spgemm import gram_symbolic
 
         E = cst.CSC.from_scipy(sp.csc_matrix((5, 5)))
         plan = gram_symbolic(E)

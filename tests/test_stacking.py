@@ -3,7 +3,7 @@
 import numpy as np
 import scipy.sparse as sp
 
-import csparse3_tpu as cst
+import csparse3_jax as cst
 
 from conftest import assert_csc_equal, rand_sp
 

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-import csparse3_tpu as cst
+import csparse3_jax as cst
 
 
 def _rand(rng, m, n, density):
@@ -97,7 +97,7 @@ def test_random_solve_chain(seed):
     """Random SPD-ish systems through every factor family vs spsolve."""
     import scipy.sparse.linalg as spla
 
-    from csparse3_tpu import linalg
+    from csparse3_jax import linalg
 
     rng = np.random.default_rng(100 + seed)
     n = int(rng.integers(30, 200))

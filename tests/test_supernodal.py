@@ -1,5 +1,5 @@
 """Supernodal device refactorization (linalg/supernodal.py) vs host LU
-and scipy — the MXU panel-factorization path for general patterns."""
+and scipy — the matmul panel-factorization path for general patterns."""
 
 import jax
 import jax.numpy as jnp
@@ -8,12 +8,12 @@ import pytest
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
-import csparse3_tpu as cst
-from csparse3_tpu.linalg import SupernodalRefactor, splu
+import csparse3_jax as cst
+from csparse3_jax.linalg import SupernodalRefactor, splu
 
 
 def _grid_system(n, seed, shift=3.0):
-    from csparse3_tpu.models.grids import synthetic_grid
+    from csparse3_jax.models.grids import synthetic_grid
 
     g = synthetic_grid(n, seed=seed)
     bp = 1.0 / g.x
@@ -84,7 +84,7 @@ def test_asymmetric_pattern_rejected():
 
 
 def test_matches_scalar_refactor_plan():
-    from csparse3_tpu.linalg.refactor import RefactorPlan
+    from csparse3_jax.linalg.refactor import RefactorPlan
 
     A = _grid_system(250, seed=5)
     lu = splu(A, ordering="amd", tol=0.0)
